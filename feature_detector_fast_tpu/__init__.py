@@ -1,12 +1,13 @@
-"""feature_detector_fast_tpu — a TPU-native FAST feature detection & SLAM
-framework.
+"""feature_detector_fast_tpu — a FAST feature detection & SLAM framework
+in JAX.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of
 `iwanders/feature_detector_fast` (an AVX2 FAST detector with bit-exact
-OpenCV 3.2 parity), grown into a TPU SLAM/SfM engine:
+OpenCV 3.2 parity), grown into a SLAM/SfM engine:
 
   * `ops.fast` — dense branchless FAST detection as fused XLA pipelines
-  * `ops.fast_pallas` — the fused single-pass Pallas TPU kernel
+  * `ops.fast_triton` — the GPU kernels: detection to packed keypoint
+    words (Pallas through Triton)
   * `oracle` — scalar & native differential oracles (the `opencv_compat`
     role from the reference)
   * `models` — descriptors, matching, pose estimation, pose graph, bundle

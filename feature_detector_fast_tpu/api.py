@@ -4,13 +4,12 @@ Mirrors the reference's `lib.rs` entry points: free function ``detect``
 (lib.rs:62-64) and ``Config.detect`` (lib.rs:56-58), returning keypoints in
 row-major order exactly like the reference's `Vec<Point>`.
 
-Design: the device side is ONE fused jit program per (shape, config, cap) —
-dense detect + score + nonmax + hierarchical superword compaction — so a
-detection costs a single dispatch and a single small result fetch
-(host<->device round trips dominate on a remote-attached TPU).  A batched
-variant amortizes dispatch further; it is the production serving path and
-what `bench.py` measures.  Backend dispatch picks the fused Pallas kernel
-on TPU and the XLA dense pipeline elsewhere.
+Design: the device side is ONE jit program per (shape, config, cap) —
+detect + score + nonmax + hierarchical superword compaction — so a
+detection costs a single dispatch and a single small result fetch.  A
+batched variant amortizes dispatch further; it is the production serving
+path and what `bench.py` measures.  `detector_route` picks the Pallas
+kernels on the GPU and the XLA reference on the CPU.
 """
 
 from __future__ import annotations
@@ -23,7 +22,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from .config import Config, NonmaxMode, Point
-from .ops import compact, fast
+from .ops import compact, fast, fast_triton
 
 ImageLike = Union[np.ndarray, jax.Array]
 
@@ -34,78 +33,62 @@ ImageLike = Union[np.ndarray, jax.Array]
 _DEFAULT_SUPER_CAP = 1 << 11
 
 
-def _use_pallas() -> bool:
-    return jax.default_backend() == "tpu"
+def detector_route(platform: Optional[str] = None) -> str:
+    """The one place the detector's implementation is chosen, from the
+    platform JAX runs on: ``"triton"`` (the Pallas kernels of
+    ops/fast_triton.py) on the GPU, ``"xla"`` (ops/fast.py, the plain
+    reference) on the CPU.  Any other platform is an error."""
+    platform = platform or jax.default_backend()
+    if platform == "gpu":
+        return "triton"
+    if platform == "cpu":
+        return "xla"
+    raise RuntimeError(f"no FAST detector for platform {platform!r}")
+
+
+def effective_width(w: int) -> int:
+    """Width in which compacted flat indices are encoded: the GPU kernel's
+    per-row word layout (fast_triton.padded_width), or the true width."""
+    if detector_route() == "triton":
+        return fast_triton.padded_width(w)
+    return int(w)
 
 
 def _max_super_cap(h: int, w: int) -> int:
-    """Upper bound on nonzero superwords.  The Pallas path packs the
-    lane-padded grid, where words align per padded row — up to one extra
-    word per row vs flat true-grid packing — so the bound must use the
-    padded WIDTH or pathological images could retry forever.  Height
-    stays TRUE: `_detect_compact` slices the word rows to the image
-    height before superword selection, so tile-padding rows can no
-    longer contribute words, and an inflated bound would oversize the
-    identity-layout cap `_grow_cap` jumps to — and with it every
-    readback buffer (ADVICE r3)."""
-    if _use_pallas():
-        from .ops import fast_pallas
-
-        w = fast_pallas.padded_width(w)
-    n_words = -(-h * w // compact.WORD_BITS)
+    """Upper bound on nonzero superwords: the whole word grid, so the
+    identity-layout cap `_grow_cap` jumps to can never overflow."""
+    n_words = -(-h * effective_width(w) // compact.WORD_BITS)
     return -(-n_words // compact.SUPER_SPAN)
 
 
 def tight_cap(n_supers: int, floor: int = 512) -> int:
     """Right-sized compaction cap for a known true superword count: ~12%
     headroom, rounded to a 512 multiple (bounds the number of distinct
-    compiled programs).  Shared by the overflow-retry growth below and the
-    benchmarks, so benches measure the same cap regime production uses."""
+    compiled programs)."""
     return max(int(floor), -(-(n_supers + n_supers // 8) // 512) * 512)
 
 
 def _grow_cap(cap: int, n_supers: int, max_cap: int) -> int:
-    """Overflow-retry cap growth: jump STRAIGHT to the full-grid bound,
+    """Overflow-retry cap growth: jump straight to the full-grid bound,
     where ops.compact emits the identity superword layout (no top_k, no
-    gather).
-
-    Rationale (round-4 A/B, tools/exp_r4_caps.py, one process): the
-    top_k partial sort's cost scales with the number of grid KEYS (8100
-    superwords at 1080p), not with the cap, so a right-sized mid cap
-    saves only readback bytes while paying the full sort — MaxThreshold
-    at its former production cap 4096 measured 0.1967 ms/frame vs
-    0.1645 at the identity cap; SumAbsolute 0.1857 vs 0.1557.  The
-    identity layout also can never overflow again, so any frame costs at
-    most ONE retry.  Frames that fit their initial cap keep the small-
-    cap top_k path (there the small readback buffer is the win)."""
+    gather).  That layout can never overflow again, so any frame costs at
+    most one retry; frames that fit their initial cap keep the small-cap
+    top_k path and its small readback buffer."""
     del cap, n_supers
     return max_cap
 
 
-def effective_width(w: int) -> int:
-    """Width in which compacted flat indices are encoded: the Pallas path
-    compacts directly on its lane-padded grid (padding cells are zero by
-    construction), skipping two full-image crop passes; the XLA path uses
-    the true width."""
-    if _use_pallas():
-        from .ops import fast_pallas
-
-        return fast_pallas.padded_width(w)
-    return int(w)
+def _compact_xla(image, threshold: int, count: int, nonmax: NonmaxMode,
+                 max_supers: int):
+    mask, _ = fast.detect_dense(image, threshold, count, nonmax)
+    return compact.compact_mask_supers(mask, max_supers)
 
 
-def _detect_dense_best(image, threshold: int, count: int, nonmax: NonmaxMode):
-    """Backend dispatch: the fused Pallas kernel on TPU, the XLA dense
-    pipeline elsewhere.  The reference gates its SIMD backend at compile
-    time with no runtime fallback (lib.rs:12-13); here the fallback is
-    always available and the choice is made at trace time."""
-    if _use_pallas():
-        from .ops import fast_pallas
-
-        return fast_pallas.detect_dense_pallas.__wrapped__(
-            image, threshold, count, nonmax, False
-        )
-    return fast.detect_dense(image, threshold, count, nonmax)
+def _compact_triton(image, threshold: int, count: int, nonmax: NonmaxMode,
+                    max_supers: int, interpret: bool = False):
+    words = fast_triton.detect_words(image, threshold, count, nonmax,
+                                     interpret=interpret)
+    return compact.compact_packed_supers(words, max_supers)
 
 
 @functools.partial(jax.jit, static_argnums=(1, 2, 3, 4))
@@ -114,31 +97,9 @@ def _detect_compact(image, threshold: int, count: int, nonmax: NonmaxMode,
     """Fused detect + hierarchical superword compaction.  Returns
     (super_idx, super_bits, n_points, n_supers); see ops.compact.  Indices
     encode flat positions over `effective_width(w)` columns."""
-    if _use_pallas():
-        from .ops import fast_pallas
-
-        if fast_pallas.words_supported(image.shape[1]):
-            # Packed-words kernel: the dense mask never exists in HBM.
-            words = fast_pallas.detect_words_padded(
-                image, threshold, count, nonmax, False
-            )
-            wpw = fast_pallas.padded_width(image.shape[1]) // 32
-            # Rows >= H are interior-masked to zero in-kernel; drop them
-            # before superword selection — the 128-row tile padding can
-            # add up to 127 all-zero rows (1080 -> 1152, ~6% of the
-            # top_k key set).  Safe at any slice length: superwords are
-            # formed from the flat word stream, so kept superword
-            # indices/bits are unchanged and a partially-sliced trailing
-            # superword re-pads with the same zeros it lost.
-            words = jax.lax.slice_in_dim(words, 0, image.shape[0], axis=0)
-            return compact.compact_packed_supers(words, wpw, max_supers)
-        mask, _ = fast_pallas.detect_dense_padded(
-            image, threshold, count, nonmax, False
-        )
-        mask = jax.lax.slice_in_dim(mask, 0, image.shape[0], axis=0)
-    else:
-        mask, _ = fast.detect_dense(image, threshold, count, nonmax)
-    return compact.compact_mask_supers(mask, max_supers)
+    if detector_route() == "triton":
+        return _compact_triton(image, threshold, count, nonmax, max_supers)
+    return _compact_xla(image, threshold, count, nonmax, max_supers)
 
 
 #: Score upper bound across modes: MaxThreshold <= 255 (a u8 threshold);
@@ -150,16 +111,16 @@ _SCORE_MAX = 4096
 def _detect_strongest_compact(image, threshold: int, count: int,
                               nonmax: NonmaxMode, k: int, max_supers: int):
     """Detect, then keep only the ~k HIGHEST-SCORING keypoints — without
-    any full-plane sort (a 2M-element top_k costs ~19 ms on TPU).
+    any full-plane sort.
 
-    TPU-native selection: bisect the score threshold T on device — each of
+    Selection bisects the score threshold T on device — each of
     the 13 static steps is one plane compare + popcount reduce — to the
     LARGEST T with count(score >= T) >= min(k, total); the surviving mask
     then rides the normal superword compaction.  Deterministic, fixed
     compute, row-major output.  Returns (super_idx, super_bits, n_points,
     n_supers, t_star); n_points >= k only by score ties at T*.
     """
-    mask, score = _detect_dense_best(image, threshold, count, nonmax)
+    mask, score = fast.detect_dense(image, threshold, count, nonmax)
     mask = mask.astype(bool)
     s = jnp.where(mask, score.astype(jnp.int32), -1)
     total = jnp.sum(mask, dtype=jnp.int32)
@@ -289,8 +250,7 @@ def _detect_compact_batch_packed(images, threshold: int, count: int,
     count, slots [128, 128+cap) the superword indices, slots
     [128+cap, 128+cap*(1+SUPER_SPAN)) the superwords' word bits (row-major
     (cap, SUPER_SPAN)).  One output array means one device->host fetch per
-    round — the serving-path layout for hosts where readback round trips
-    dominate."""
+    round."""
     ms = int(max_supers)
 
     def one(im):
@@ -369,7 +329,7 @@ def detect_batch_device(
     *,
     max_supers: int = _DEFAULT_SUPER_CAP,
 ) -> Tuple[jax.Array, jax.Array, jax.Array, jax.Array]:
-    """Device-resident batched detection for on-TPU consumers (descriptors,
+    """Device-resident batched detection for on-device consumers (descriptors,
     matching): returns (super_idx (B, cap), super_bits (B, cap,
     SUPER_SPAN), n (B,), n_supers (B,)) without any host transfer."""
     config = config or Config()

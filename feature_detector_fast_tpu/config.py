@@ -4,7 +4,7 @@ Mirrors the reference's `src/lib.rs` API surface (`Point` lib.rs:17-20,
 `NonMaximalSuppression` lib.rs:26-36, `Config` lib.rs:40-52) with idiomatic
 Python naming.  The config is hashable and frozen so it can be used as a JIT
 static argument: every distinct (threshold, count, nonmax) triple compiles to
-its own fused XLA program, the TPU analogue of the reference's const-generic
+its own fused XLA program, the analogue of the reference's const-generic
 monomorphization (fast_simd.rs:847-859).
 """
 
@@ -63,7 +63,7 @@ class Config:
         than this to count toward the consecutive run (u8 range, 0..=255).
       count: minimum number of consecutive qualifying circle pixels,
         9 <= count <= 16.  For count >= 12 a 3-of-4 cardinal prefilter is
-        valid (the TPU kernels use it to skip whole tiles).
+        valid.
       nonmax: non-maximal suppression mode.
     """
 

@@ -6,10 +6,10 @@ o'clock (0, -3) and proceeds clockwise; this ordering is load-bearing for the
 "n consecutive" arc test and must match the reference
 (`/root/reference/src/fast_simd.rs:79-98` and `src/opencv_compat.rs:42-61`).
 
-On TPU we never gather these taps: each circle point becomes a statically
-shifted view of the (padded) image, so the 16 taps are aligned vector loads
-(cf. the reference's dual `_mm256_i32gather_epi32`, fast_simd.rs:133-197,
-which is exactly what we avoid).
+The detectors never gather these taps: each circle point becomes a
+statically shifted view of the image (cf. the reference's dual
+`_mm256_i32gather_epi32`, fast_simd.rs:133-197, which is exactly what we
+avoid).
 """
 
 from __future__ import annotations
@@ -62,5 +62,5 @@ def point(index: int) -> Tuple[int, int]:
 def calculate_offsets(width: int) -> List[int]:
     """Flat row-major memory offsets of the circle points for an image of
     ``width`` (reference: fast_simd.rs:104-110).  Kept for API parity and the
-    native oracle; the TPU kernels use shifted slices instead of offsets."""
+    native oracle; the detectors use shifted slices instead of offsets."""
     return [dy * int(width) + dx for (dx, dy) in CIRCLE]

@@ -1,7 +1,7 @@
-"""BRIEF binary descriptors, TPU-style.
+"""BRIEF binary descriptors.
 
 New scope beyond the reference detector (BASELINE.json north_star:
-"BRIEF-style descriptor extraction and matching").  Design choices for TPU:
+"BRIEF-style descriptor extraction and matching").  Design choices:
 
   * fixed-capacity keypoint slots (top-K by score) — static shapes under
     jit; invalid slots carry a validity bit instead of changing shape,
@@ -9,8 +9,8 @@ New scope beyond the reference detector (BASELINE.json north_star:
     sampling — the classic BRIEF pre-smoothing,
   * the 256 point-pair samples are one batched gather from the smoothed
     image (K x 512 samples), the only gather in the front-end,
-  * descriptors packed to (K, 8) uint32; Hamming matching happens on the
-    MXU via +-1 matmul (see models.match).
+  * descriptors packed to (K, 8) uint32; Hamming matching is a +-1
+    matmul (see models.match).
 
 The sampling pattern is a fixed, seeded isotropic Gaussian pair set
 (classic BRIEF-256), generated once at import with numpy so it is
@@ -56,8 +56,7 @@ def _quadrant_decomposition():
     rho in (-45, 45]; 90-degree rotations are exact integer-grid
     isometries, so only the residual rho needs a rounded pattern table.
     The 30 bins share just 15 distinct residuals (gcd structure of
-    12-degree steps vs 90-degree quadrants), which HALVES the steered
-    sampling matmul (see describe_patched).
+    12-degree steps vs 90-degree quadrants).
 
     Returns (quadrant (N_ANGLE_BINS,), residual_bin (N_ANGLE_BINS,),
     residual_angles_deg (N_RESIDUAL,))."""
@@ -104,11 +103,11 @@ RESIDUAL_PATTERNS: np.ndarray = _make_residual_patterns()
 
 def _make_rotated_patterns() -> np.ndarray:
     """(N_ANGLE_BINS, BITS, 2, 2) int32: the steered-BRIEF table (ORB
-    style), DEFINED as the 90-degree isometries of the residual tables so
-    the quadrant-decomposed patched path (describe_patched) and the sparse
-    gather path (describe_oriented) sample identical positions.  (Direct
-    per-bin rounding differs on 87/30720 coords where cos/sin land samples
-    exactly on half-integers — the decomposition is the canonical table.)"""
+    style), DEFINED as the 90-degree isometries of the residual tables:
+    90-degree rotations are exact on the pixel grid, so only the residual
+    angle is rounded.  (Direct per-bin rounding differs on 87/30720 coords
+    where cos/sin land samples exactly on half-integers — the
+    decomposition is the canonical table.)"""
     out = np.zeros((N_ANGLE_BINS, BITS, 2, 2), np.int32)
     for b in range(N_ANGLE_BINS):
         rp = RESIDUAL_PATTERNS[RESIDUAL_BIN[b]]
@@ -126,11 +125,10 @@ def _boxsum_chain(x: jax.Array, r: int) -> jax.Array:
 
     Doubling-chain shifted adds instead of cumsum: window sums of length
     2L come from two length-L sums, and (2r+1) is folded from its binary
-    decomposition — ~2 log2(r) plane adds per axis.  (jnp.cumsum lowers to
-    a multi-pass scan on TPU that costs milliseconds per 1080p plane; the
-    old cumsum formulation also accumulated f32 prefix sums far beyond the
-    24-bit mantissa, so large-image moments silently lost integer
-    exactness.  i32 shifted adds are exact and ~10x faster.)"""
+    decomposition — ~2 log2(r) plane adds per axis.  (An f32 cumsum
+    formulation accumulates prefix sums far beyond the 24-bit mantissa,
+    so large-image moments would lose integer exactness; i32 shifted adds
+    are exact.)"""
     n = 2 * r + 1
 
     def box1d(v, axis):
@@ -194,9 +192,8 @@ def orientation_bins(image: jax.Array, kps: "Keypoints") -> jax.Array:
 def box_blur5(image: jax.Array) -> jax.Array:
     """5x5 box sum via separable shifted adds (dense, fused).  Returns
     int32 sums (not divided — BRIEF only compares, scale cancels).
-    Integer adds are associative, so this is bit-identical to the previous
-    cumsum formulation — but ~10x faster on TPU, where cumsum lowers to a
-    multi-pass scan (~4.5 ms/plane at 1080p vs ~0.4 ms for 8 plane adds)."""
+    Integer adds are associative, so this equals a cumsum formulation
+    bit for bit."""
     img = image.astype(jnp.int32)
 
     def box1d(x, axis):
@@ -225,17 +222,9 @@ class Keypoints(NamedTuple):
 def _sel_group(n: int, k: int) -> int:
     """Pixels per selection group in the two-level top-K (see select_topk).
 
-    The two levels touch n/G + k*G keys and XLA's top_k costs roughly
-    linearly in keys touched, so G wants to shrink as k grows — but
-    groups narrower than a 128-lane vreg waste the per-group reduce and
-    the row gather.  Measured on v5e at 1080p (detect+topk ms/frame):
-    k=512: G128 0.45 < G64 0.48 < G256 0.51; k=1000: G128 0.53 < G64 ~
-    G32 0.64 < G256 0.68; k=2048: G64 0.58 < G128 0.67 < G256 1.16.
-    A THREE-level scheme (groups of G1, then G2 group-maxima per
-    supergroup) touches ~2.4x fewer keys at 1080p/k=1000 but measured
-    ~20% SLOWER for every G1 < 64 — the (n/G1, G1) max-reduce and the
-    selected-row gathers run on G1-lane vregs, so narrow levels waste
-    the VPU exactly as this docstring predicts for the two-level G."""
+    The two levels touch n/G + k*G keys, so G wants to shrink as k grows
+    (G ~ sqrt(n / k)).  The choice of G changes the cost only, never the
+    result (see select_topk); it has not been tuned on the GPU."""
     return 64 if n < 1500 * k else 128
 
 
@@ -280,8 +269,8 @@ def select_topk(mask: jax.Array, score: jax.Array, k: int) -> Keypoints:
     Reported Keypoints.score values are exact (regathered), never
     clipped.
 
-    Two-level selection instead of one top_k over all H*W keys (which
-    costs ~2 ms/frame at 1080p on TPU — a near-full-image partial sort):
+    Two-level selection instead of one top_k over all H*W keys (a
+    near-full-image partial sort):
     group pixels G per group (G ~ sqrt(H*W/k), see _sel_group), take each
     group's max key (a cheap lane reduce), top_k the H*W/G group maxima,
     then top_k the selected groups' gathered key rows.  Provably
@@ -332,9 +321,8 @@ def describe(image: jax.Array, kps: Keypoints) -> Tuple[jax.Array, jax.Array]:
 
     pat = jnp.asarray(PATTERN)  # (BITS, 2, 2)
     off_flat = pat[..., 1] * w + pat[..., 0]  # (BITS, 2)
-    # Both pattern endpoints ride ONE (2*BITS,) offset vector — a trailing
-    # dim of 2 would pad to 128 lanes under TPU tiled layouts (64x memory
-    # on the (K, BITS, 2) gather; 28 GB at serving batch sizes).
+    # Both pattern endpoints ride ONE (2*BITS,) offset vector, so the
+    # gather output has no tiny trailing dimension.
     off_cat = jnp.concatenate([off_flat[:, 0], off_flat[:, 1]])  # (2*BITS,)
 
     base = kps.xy[:, 1] * w + kps.xy[:, 0]  # (K,)
@@ -350,91 +338,7 @@ def describe(image: jax.Array, kps: Keypoints) -> Tuple[jax.Array, jax.Array]:
     samples = blur[jnp.clip(sample_idx, 0, h * w - 1)]
     bits = samples[:, :BITS] < samples[:, BITS:]  # (K, BITS)
 
-    shifts = jnp.arange(32, dtype=jnp.uint32)
-    grouped = bits.reshape(-1, WORDS, 32).astype(jnp.uint32)
-    desc = (grouped << shifts[None, None, :]).sum(axis=-1, dtype=jnp.uint32)
-    return desc, inb
-
-
-def describe_dense(
-    image: jax.Array, kps: Keypoints, interpret: bool = False
-) -> Tuple[jax.Array, jax.Array]:
-    """BRIEF-256 via the dense Pallas kernel (ops/brief_pallas.py):
-    every-pixel descriptor words in VMEM, then a K x WORDS gather.
-    Bit-identical to :func:`describe` at every valid slot (invalid slots
-    carry garbage in both paths and are masked by the validity bit)."""
-    from ..ops import brief_pallas
-
-    h, w = image.shape
-    inb = (
-        kps.valid
-        & (kps.xy[:, 0] >= BORDER)
-        & (kps.xy[:, 0] < w - BORDER)
-        & (kps.xy[:, 1] >= BORDER)
-        & (kps.xy[:, 1] < h - BORDER)
-    )
-    planes = brief_pallas.describe_words_padded(image, interpret)
-    desc = brief_pallas.gather_descriptors(planes, kps.xy, inb)
-    return desc, inb
-
-
-_PATCH = 2 * PATCH_R + 1  # rows/cols of a descriptor patch
-
-
-@functools.lru_cache(maxsize=None)
-def _sampling_matrix(table: str = "plain") -> np.ndarray:
-    """(n_bins, 2 * _PATCH**2, BITS) bf16-exact +-1/+-128 matrix turning a
-    hi/lo-split flattened patch into per-bit sample differences.
-
-    ``table``: "plain" = the unrotated pattern (1 bin); "residual" = the
-    N_RESIDUAL_BINS quadrant-residual tables (steered path — the 90-degree
-    part of each orientation is applied by rotating the PATCH, an exact
-    integer isometry, so only 15 matrices are needed instead of 30).
-
-    Column i carries +1 at pattern endpoint 2 and -1 at endpoint 1 (so
-    ``diff > 0`` reproduces the sparse path's ``blur[o1] < blur[o2]``
-    strict compare; coincident endpoints cancel to 0 = bit False, exactly
-    like the sparse compare of one sample with itself).  The first
-    _PATCH**2 rows are scaled by 128 and multiply the high 6 bits of the
-    blurred value, the rest multiply the low 7 — both operand halves are
-    integers < 256, hence exact in bf16, and every accumulation stays far
-    inside f32's integer range (|diff| <= 961 * 6375 < 2**23)."""
-    pats = RESIDUAL_PATTERNS if table == "residual" else PATTERN[None]
-    nb = pats.shape[0]
-    d = np.zeros((nb, _PATCH * _PATCH, BITS), np.float32)
-    for b in range(nb):
-        for i in range(BITS):
-            (x1, y1), (x2, y2) = pats[b, i]
-            d[b, (y1 + PATCH_R) * _PATCH + (x1 + PATCH_R), i] -= 1.0
-            d[b, (y2 + PATCH_R) * _PATCH + (x2 + PATCH_R), i] += 1.0
-    return np.concatenate([128.0 * d, d], axis=1)
-
-
-@functools.lru_cache(maxsize=None)
-def _sampling_matrix_i8(table: str = "plain") -> np.ndarray:
-    """int8 twin of :func:`_sampling_matrix` for the MXU's 2x-rate s8 x s8
-    -> s32 path: the patch splits as p = 64*hi + lo (hi = p>>6 <= 99,
-    lo = p&63 — both int8), so rows are [64*d; d] with entries in
-    {-64, 0, 64} / {-1, 0, 1}.  Every product <= 99*64 and the i32
-    accumulation is exact (|diff| <= 961*6375 < 2^23), giving the same
-    integers as the bf16 hi/lo-7-bit formulation bit-for-bit."""
-    base = _sampling_matrix(table)
-    half = _PATCH * _PATCH
-    d = base[:, half:, :]  # the unscaled +-1 rows
-    return np.concatenate([64.0 * d, d], axis=1).astype(np.int8)
-
-
-@functools.lru_cache(maxsize=None)
-def _moment_matrix() -> np.ndarray:
-    """(_PATCH**2, 2) f32 — (dx, dy) per flattened patch cell, so patch
-    moments (m10, m01) = raw_patch @ _moment_matrix.  Weights <= 15 and
-    raw pixels <= 255 are both bf16-exact; |m| <= 961*255*15 < 2**22, so
-    the f32-accumulated matmul equals :func:`orientation_bins`'s dense
-    box-filter moments bit-for-bit."""
-    d = np.arange(-PATCH_R, PATCH_R + 1, dtype=np.float32)
-    dx = np.tile(d, _PATCH)
-    dy = np.repeat(d, _PATCH)
-    return np.stack([dx, dy], axis=1)
+    return _pack_bits(bits), inb
 
 
 def _pack_bits(bits: jax.Array) -> jax.Array:
@@ -442,160 +346,6 @@ def _pack_bits(bits: jax.Array) -> jax.Array:
     shifts = jnp.arange(32, dtype=jnp.uint32)
     grouped = bits.reshape(-1, WORDS, 32).astype(jnp.uint32)
     return (grouped << shifts[None, None, :]).sum(axis=-1, dtype=jnp.uint32)
-
-
-def _block_sorted_feed(
-    xy: jax.Array, h: int, w: int, group: int
-) -> Tuple[jax.Array, jax.Array]:
-    """(feed_xy (Kp, 2), inv (K,)) — coords reordered so the extraction
-    kernel's DMAs dedup, plus the gather indices that restore slot order.
-
-    extract_windows_fused is DMA-count-bound, and Pallas elides an
-    operand's copy when its block index is unchanged between consecutive
-    grid steps.  Operand j of grid step i reads coords[group*i + j], so
-    feeding strip-block-sorted keypoints INTERLEAVED — feed[group*i + j] =
-    sorted[j*S + i], S = Kp/group — makes each operand walk a contiguous
-    sorted run: its DMA count drops from S to ~(#distinct blocks in the
-    run).  Measured 1.26x on extraction at k=1000/1080p (uniform-random
-    coords; clustered real keypoints dedup at least as well).  Row order
-    of the extracted windows is feed order; callers un-permute the CHEAP
-    downstream products (descriptor words, moments) via ``inv``:
-    ``out_slot_s = rows[inv[s]]``."""
-    from ..ops import patch_pallas as pp
-
-    k = xy.shape[0]
-    kp = -(-k // group) * group
-    margin = pp.PATCH // 2 + 2
-    # Same clipping as the kernel's index map, so the sort key matches the
-    # block actually fetched.
-    xc = jnp.clip(xy[:, 0], margin, w - margin - 1)
-    yc = jnp.clip(xy[:, 1], margin, h - margin - 1)
-    key = ((yc - margin) // pp._BLK_H) * 1024 + (xc - margin) // pp.LANES
-    perm = jnp.argsort(key)  # (K,) sorted-pos -> slot
-    xy_sorted = xy[perm]
-    tot = perm
-    if kp != k:
-        xy_sorted = jnp.concatenate(
-            [xy_sorted, jnp.full((kp - k, 2), margin, xy.dtype)])
-        tot = jnp.concatenate(
-            [tot, jnp.arange(k, kp, dtype=perm.dtype)])
-    s = kp // group
-    feed_xy = xy_sorted.reshape(group, s, 2).transpose(1, 0, 2).reshape(kp, 2)
-    feed_slot = tot.reshape(group, s).T.reshape(kp)  # feed row -> slot
-    inv = jnp.argsort(feed_slot)  # slot -> feed row
-    return feed_xy, inv[:k]
-
-
-def describe_patched(
-    image: jax.Array, kps: Keypoints, oriented: bool = False,
-    interpret: bool = False, sort_blocks: bool = False,
-) -> Tuple[jax.Array, jax.Array]:
-    """BRIEF-256 (plain or steered) via per-keypoint patch extraction +
-    one MXU sampling matmul — the fast TPU path for sparse keypoint sets.
-
-    The K x 512 scattered-sample gather of :func:`describe` /
-    :func:`describe_oriented` costs ~7-9 ms/frame at 1080p on TPU.  Here
-    the Pallas kernel ``ops/patch_pallas.py`` slices each keypoint's
-    31x31 blurred patch out of a VMEM-resident image copy (no
-    per-keypoint gather OR input DMA), and ALL pattern samples drop out
-    of one int8 matmul against a +-1 one-hot difference matrix on the
-    MXU's 2x-rate s8 x s8 -> s32 path, exact in i32 (see
-    _sampling_matrix_i8); for the steered variant, the 90-degree part of
-    each orientation rotates the PATCH (exact isometry) so the matmul
-    spans only the 15 residual-bin matrices.  Bit-identical to the
-    sparse paths at every valid slot.
-
-    ``sort_blocks`` feeds the kernel strip-block-sorted coords so
-    consecutive same-block DMAs dedup (see _block_sorted_feed); the final
-    descriptor rows are restored to slot order, so results are identical
-    (verified bit-exact on hardware).  Only relevant to the strip-DMA
-    FALLBACK kernel (sources too big for VMEM residency — see
-    extract_windows_fused): the resident path issues no per-keypoint
-    input DMA, so there is nothing to dedup.  OPT-IN even there: long
-    elision runs flakily crash the TPU worker at large batch x grid
-    (e.g. 216-frame VGA batches, ~50% of invocations — a Mosaic/XLA
-    pipelining fault, not a values bug; successful runs are
-    bit-identical).
-    """
-    h, w = image.shape
-    from ..ops import patch_pallas
-
-    inb = (
-        kps.valid
-        & (kps.xy[:, 0] >= BORDER)
-        & (kps.xy[:, 0] < w - BORDER)
-        & (kps.xy[:, 1] >= BORDER)
-        & (kps.xy[:, 1] < h - BORDER)
-    )
-    inv = None
-    feed_xy = kps.xy
-    if sort_blocks:
-        feed_xy, inv = _block_sorted_feed(
-            kps.xy, h, w, patch_pallas._GROUP)
-    # Fused kernel: one DMA per keypoint fetches an overlapped u8 strip,
-    # the 5x5 blur runs on the 24 KB window in VMEM, and raw pixels ride
-    # the blurred patch's spare high bits for the orientation moments.
-    wins = patch_pallas.extract_windows_fused(
-        image, feed_xy, interpret=interpret)
-    pr = wins[:, :_PATCH, :_PATCH]  # (K, 31, 31) blur | raw << RAW_SHIFT
-    blur_mask = (1 << patch_pallas.RAW_SHIFT) - 1
-
-    def _feat(patches):  # hi/lo int8 split of flattened patches (p = 64*hi+lo)
-        p = patches.reshape(-1, _PATCH * _PATCH)
-        return jnp.concatenate(
-            [(p >> 6).astype(jnp.int8), (p & 63).astype(jnp.int8)],
-            axis=1,
-        )
-
-    if oriented:
-        # Moments from the raw patches (bit-identical to orientation_bins
-        # — see _moment_matrix) give the 30-bin orientation; it splits as
-        # quadrant x residual (see _quadrant_decomposition).  The quadrant
-        # is applied by ROTATING THE PATCH — an exact 90-degree isometry
-        # (transpose/flip relayouts + a 4-way select) — so the sampling
-        # matmul only spans the 15 residual matrices, then a residual-bin
-        # one-hot selects each keypoint's row: HALF the steered-matmul
-        # FLOPs for identical bits (rounding commutes with the isometry).
-        raw = (pr >> patch_pallas.RAW_SHIFT).reshape(-1, _PATCH * _PATCH)
-        m = jnp.einsum(
-            "kp,pm->km",
-            raw.astype(jnp.bfloat16),
-            jnp.asarray(_moment_matrix(), jnp.bfloat16),
-            preferred_element_type=jnp.float32,
-        )
-        angle = jnp.arctan2(m[:, 1], m[:, 0])
-        bins = jnp.mod(
-            jnp.round(angle / (2.0 * jnp.pi) * N_ANGLE_BINS).astype(jnp.int32),
-            N_ANGLE_BINS,
-        )
-        q = jnp.asarray(QUADRANT)[bins]
-        rb = jnp.asarray(RESIDUAL_BIN)[bins]
-        # rot[q][r, c] = patch[ISO_q(point at (r, c))]: q=1 -> patch[c, 30-r],
-        # q=2 -> patch[30-r, 30-c], q=3 -> patch[30-c, r].
-        pb = pr & blur_mask
-        t = pb.swapaxes(1, 2)
-        qv = q[:, None, None]
-        sel = jnp.where(qv == 1, jnp.flip(t, 1), pb)
-        sel = jnp.where(qv == 2, jnp.flip(jnp.flip(pb, 1), 2), sel)
-        sel = jnp.where(qv == 3, jnp.flip(t, 2), sel)
-        d = jnp.asarray(_sampling_matrix_i8("residual"))
-        diff = jnp.einsum(
-            "kp,bpi->kbi", _feat(sel), d, preferred_element_type=jnp.int32
-        )  # (K, N_RESIDUAL_BINS, BITS), exact integers
-        onehot = (rb[:, None] == jnp.arange(d.shape[0])[None, :]).astype(
-            jnp.int32
-        )
-        diff = (diff * onehot[:, :, None]).sum(axis=1)
-    else:
-        d = jnp.asarray(_sampling_matrix_i8("plain")[0])
-        diff = jnp.einsum(
-            "kp,pi->ki", _feat(pr & blur_mask), d,
-            preferred_element_type=jnp.int32,
-        )  # (K, BITS), exact integers
-    desc = _pack_bits(diff > 0)
-    if inv is not None:  # restore slot order (cheap: (K, WORDS) gather)
-        desc = desc[inv]
-    return desc, inb
 
 
 @functools.partial(jax.jit, static_argnums=())
@@ -631,10 +381,7 @@ def describe_oriented(
     samples = blur[jnp.clip(sample_idx, 0, h * w - 1)]
     bits = samples[:, :BITS] < samples[:, BITS:]
 
-    shifts = jnp.arange(32, dtype=jnp.uint32)
-    grouped = bits.reshape(-1, WORDS, 32).astype(jnp.uint32)
-    desc = (grouped << shifts[None, None, :]).sum(axis=-1, dtype=jnp.uint32)
-    return desc, inb
+    return _pack_bits(bits), inb
 
 
 def detect_and_describe(
@@ -647,33 +394,14 @@ def detect_and_describe(
     the orientation moment filters.  Returns (keypoints, desc (K, WORDS)
     uint32, desc_valid (K,) bool); fully fused under jit, device-resident.
     """
-    from ..api import _detect_dense_best
     from ..config import NonmaxMode
+    from ..ops import fast
 
-    mask, score = _detect_dense_best(image, threshold, count, NonmaxMode.SUM_ABSOLUTE)
+    mask, score = fast.detect_dense(image, threshold, count,
+                                    NonmaxMode.SUM_ABSOLUTE)
     kps = select_topk(mask, score, k)
-    if oriented:
-        if jax.default_backend() == "tpu":
-            # Patch-extraction kernel + MXU sampling matmul: the sparse
-            # rotated-sample gather costs ~9 ms/frame at 1080p on TPU.
-            desc, dvalid = describe_patched(image, kps, oriented=True)
-        else:
-            desc, dvalid = describe_oriented.__wrapped__(image, kps)
-    elif jax.default_backend() == "tpu":
-        if k <= 1280:
-            # Patch extraction + sampling matmul: cost scales with K, so
-            # it beats the fixed-cost dense kernel for sparse sets.
-            # Measured crossover on v5e 1080p (ms/frame, patched vs
-            # dense): k=512 0.84/1.33, k=1024 1.28/1.47, k=1536
-            # 1.74/1.57, k=4096 3.85/2.04.
-            desc, dvalid = describe_patched(image, kps, oriented=False)
-        else:
-            # Dense Pallas description: compare shifted blurred planes
-            # on-chip and gather only K*WORDS scalars — the sparse
-            # K*512-sample gather below costs ~7.5 ms/frame at 1080p.
-            desc, dvalid = describe_dense(image, kps)
-    else:
-        desc, dvalid = describe.__wrapped__(image, kps)
+    describe_fn = describe_oriented if oriented else describe
+    desc, dvalid = describe_fn.__wrapped__(image, kps)
     return kps, desc, dvalid
 
 
@@ -683,8 +411,7 @@ def detect_and_describe_batch(
     oriented: bool = False,
 ) -> Tuple[Keypoints, jax.Array, jax.Array]:
     """Batched front-end: one fused dispatch for a whole (B, H, W) frame
-    stack — the serving path (per-frame dispatches pay a host round trip
-    each on remote-attached TPUs).  Returns batch-leading Keypoints /
+    stack — the serving path.  Returns batch-leading Keypoints /
     descriptors."""
     return jax.vmap(
         lambda im: detect_and_describe(im, threshold, count, k, oriented)

@@ -2,7 +2,7 @@
 
 New scope (BASELINE.json: pose-graph optimization, bundle adjustment).
 Everything is pure jnp, works under vmap/jit/grad, and is dtype-following
-(float32 on TPU; tests may run float64 on CPU).  Small-angle branches use
+(float32 on the device; tests may run float64 on CPU).  Small-angle branches use
 Taylor series selected with jnp.where so gradients stay finite.
 
 Conventions: rotations are 3x3 matrices; se(3) tangent vectors are

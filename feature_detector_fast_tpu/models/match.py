@@ -1,10 +1,10 @@
-"""Binary descriptor matching on the MXU.
+"""Binary descriptor matching as a matrix product.
 
 Hamming distance between BRIEF descriptors is classically a popcount(xor)
-loop; on TPU the same quantity is a matmul: with descriptors as +-1
-vectors, dot(a, b) = BITS - 2 * hamming(a, b).  A (K x 256) @ (256 x K)
-bf16 matmul saturates the MXU and yields the full distance matrix in one
-shot — the TPU-native re-design of a bitwise matcher.
+loop; the same quantity is a matmul: with descriptors as +-1 vectors,
+dot(a, b) = BITS - 2 * hamming(a, b).  One (K x 256) @ (256 x K) bf16
+matmul (exact: +-1 terms, at most 256 of them, f32 accumulation) yields
+the full distance matrix in one shot.
 
 Matching policy: mutual nearest neighbors with Lowe ratio test (on
 distances, best < ratio * second-best) — standard for SLAM front-ends.

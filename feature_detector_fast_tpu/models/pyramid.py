@@ -1,7 +1,7 @@
 """Multi-scale (pyramid) FAST detection and description.
 
 The reference detector is single-scale; real SLAM front-ends detect over
-an image pyramid for scale invariance.  TPU-style: dyadic levels built by
+an image pyramid for scale invariance.  Dyadic levels built by
 2x2 box averaging (one fused XLA reduce per level), per-level fused
 detection, fixed K keypoint slots per level, descriptors computed on the
 level image, coordinates reported at level-0 resolution.

@@ -1,5 +1,5 @@
 """Two-view geometry: essential matrix estimation, pose recovery,
-triangulation — batched RANSAC the TPU way.
+triangulation — batched RANSAC as one device dispatch.
 
 New scope (BASELINE.json config[3]: "FAST + descriptor matching +
 pose-graph on a monocular sequence").  Design: RANSAC is not a loop with
@@ -176,8 +176,7 @@ def _eight_point_hyp(pa: jax.Array, pb: jax.Array) -> jax.Array:
     FULL essential projection (`_essential_project`).  Matches the
     SVD-based `_eight_point` to f32 working accuracy (median pair
     rotation error 0.238 vs 0.239 deg on the rendered staged circuit)
-    at ~6x its speed in the batched RANSAC dispatch
-    (tools/exp_r5_ransac_speed.py)."""
+    without the tiny batched SVDs."""
     A = _epipolar_rows(pa, pb)
     E = _nullvec_rows8(A).reshape(3, 3)
     return _essential_project(E)
@@ -270,7 +269,7 @@ def ransac_essential(
 
 def _eight_point_weighted(pa, pb, w):
     """Inlier-weighted refit: smallest eigenvector of the (9, 9) normal
-    matrix (the (K, 9)^T (K, 9) product rides the MXU; the round-4 code
+    matrix (the (K, 9)^T (K, 9) product is one small matmul; the round-4 code
     ran a FULL-matrices SVD of the (K, 9) row matrix — a (K, K) U factor
     for K = 512 slots — per refit).  eigh on a 9x9 runs per PAIR, not
     per hypothesis, so its cost is negligible, and it keeps full f32
@@ -328,9 +327,8 @@ def ray_depths(
 
     Round-4 motivation: the homogeneous-DLT `triangulate` runs one 4x4
     SVD per correspondence, and the VO pipeline triangulated every pair
-    SIX times (4 cheirality candidates + depths + refine) — measured
-    279 ms per (63, 512) call on the v5e vs ~1 ms for this form; tiny
-    batched SVDs are the single most expensive op in the geometry stage.
+    SIX times (4 cheirality candidates + depths + refine), and tiny
+    batched SVDs were the most expensive op in the geometry stage.
     Cheirality needs only the SIGNS of (za, zb) and scale chaining needs
     depth RATIOS, both of which this least-squares form provides with
     2x2 conditioning (the f32 3x3 normal-equation DLT loses up to ~0.3

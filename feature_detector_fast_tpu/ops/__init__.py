@@ -1,1 +1,1 @@
-"""Compute kernels: dense XLA pipelines and Pallas TPU kernels."""
+"""Compute kernels: dense XLA pipelines and the GPU Pallas kernels."""

@@ -1,32 +1,25 @@
 """Dense-mask to keypoint-list compaction.
 
-TPU kernels have static shapes, so detection produces a dense (H, W) mask;
-the variable-length keypoint list the reference API returns
-(`Vec<Point>`, lib.rs:56-64) is recovered by compaction.
+Device programs have static shapes, so detection produces a dense (H, W)
+mask or packed words; the variable-length keypoint list the reference API
+returns (`Vec<Point>`, lib.rs:56-64) is recovered by compaction.
 
-A direct `jnp.nonzero` over the 2M-pixel mask lowers to a full-size sort —
-~19 ms/frame on a v5e chip, dwarfing detection itself.  Instead compaction
-is hierarchical, exploiting keypoint sparsity (~0.5-1% of pixels):
+A direct `jnp.nonzero` over the 2M-pixel mask lowers to a full-size sort.
+Instead compaction is hierarchical, exploiting keypoint sparsity
+(~0.5-1% of pixels):
 
   1. pack the mask 32 pixels/word in row-major order (shift + minor-axis
-     reduce, pure VPU),
+     reduce),
   2. group words into SUPER_SPAN-word *superwords* (256 px each) and
      select the nonzero superwords' indices with `lax.top_k` over a
      descending-index key — an 8x smaller partial sort than word-level
-     selection, which itself beats the full-size sort `jnp.nonzero`
-     lowers to by ~2x at 1080p word counts,
+     selection,
   3. gather the selected superwords' word-bit rows whole.
 
 When the cap covers the whole superword grid, `_select_nonzero_supers`
-emits the identity superword layout instead — no sort, no gather.  The
-top_k's cost scales with the number of grid KEYS, not the cap, so the
-identity layout wins on any frame dense enough to overflow its initial
-cap: 0.044 ms/frame cheaper than the near-full top_k on the golden OFF
-config (tools/exp_compact_identity.py, round 3) and 0.030+ ms cheaper
-than a right-sized mid cap for MT/SA (tools/exp_r4_caps.py, round 4) —
-which is why api._grow_cap's overflow retry jumps straight to the grid
-bound.  Frames that FIT their initial cap keep the small-cap top_k path
-and its small readback buffer.
+emits the identity superword layout instead — no sort, no gather; that is
+where api._grow_cap's overflow retry lands.  Frames that FIT their initial
+cap keep the small-cap top_k path and its small readback buffer.
 
 The (superword-index, word-bits-row) pairs are a complete, ordered sparse
 encoding (~72 KB/frame at the default cap); expanding to flat pixel
@@ -53,8 +46,7 @@ import numpy as np
 
 WORD_BITS = 32
 #: Words per superword.  8 x 32 = 256 px per selection key: big enough to
-#: shrink the top_k by 8x (the selection stage drops ~0.14 -> ~0.03
-#: ms/frame at 1080p), small enough that keypoint-bearing regions stay
+#: shrink the top_k by 8x, small enough that keypoint-bearing regions stay
 #: dense within a selected span (the gathered payload grows only ~12%).
 SUPER_SPAN = 8
 
@@ -170,11 +162,12 @@ def compact_mask_supers(
 
 
 def compact_packed_supers(
-    words2d: jax.Array, n_word_cols: int, max_supers: int
+    words2d: jax.Array, max_supers: int
 ) -> Tuple[jax.Array, jax.Array, jax.Array, jax.Array]:
     """`compact_mask_supers` for a kernel that already emitted packed words
-    (fast_pallas.detect_words_padded).  Same return contract."""
-    bits = words2d[:, : int(n_word_cols)].reshape(-1)
+    (fast_triton.detect_words: (rows, words per row) i32).  Same return
+    contract."""
+    bits = words2d.reshape(-1)
     n = jax.lax.population_count(bits.view(jnp.uint32)).sum(dtype=jnp.int32)
     sidx, sbits, n_supers = _select_nonzero_supers(bits, max_supers)
     return sidx, sbits, n, n_supers
@@ -206,18 +199,6 @@ def expand_supers_host(
     return expand_words_host(widx, wbits.view(np.uint32), n_points, width)
 
 
-def compact_packed_words(
-    words2d: jax.Array, n_word_cols: int, max_words: int
-) -> Tuple[jax.Array, jax.Array, jax.Array, jax.Array]:
-    """`compact_mask_words` for a kernel that already emitted packed words
-    (fast_pallas.detect_words_padded): (rows, lanes) i32 with the first
-    ``n_word_cols`` lanes valid.  Same return contract."""
-    bits = words2d[:, : int(n_word_cols)].reshape(-1)
-    n = jax.lax.population_count(bits.view(jnp.uint32)).sum(dtype=jnp.int32)
-    widx, wbits, n_words = _select_nonzero_words(bits, max_words)
-    return widx, wbits, n, n_words
-
-
 def expand_words_host(
     word_idx: np.ndarray, word_bits: np.ndarray, n_points: int, width: int
 ) -> np.ndarray:
@@ -244,7 +225,7 @@ def expand_words_host(
 
 def compact_mask(mask: jax.Array, max_points: int) -> Tuple[jax.Array, jax.Array, jax.Array]:
     """Direct nonzero compaction: (xy (max_points, 2) uint32, n, overflow).
-    O(H*W log H*W) on TPU — use `compact_mask_words` in hot paths."""
+    A full-size sort — use `compact_mask_supers` in hot paths."""
     h, w = mask.shape
     flat = mask.reshape(-1)
     n = jnp.sum(flat, dtype=jnp.int32)

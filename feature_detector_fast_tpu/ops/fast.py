@@ -12,7 +12,7 @@ dense, predicated computation over the whole image:
   * the wraparound n-consecutive arc test is an O(log n) addition-chain of
     ANDs over 16 boolean planes (`ops.windows`),
   * both score functions are evaluated densely and predicated by the
-    keypoint mask (TPU lanes can't early-out; predication is the idiom),
+    keypoint mask (vector lanes can't early-out; predication is the idiom),
   * 3x3 strict-max nonmax is a fused 8-neighbor compare on the score map.
 
 Semantics are bit-exact with the reference / OpenCV:
@@ -34,7 +34,7 @@ Semantics are bit-exact with the reference / OpenCV:
     from the streaming side).
 
 All functions take config fields as Python ints / enums: they are trace-time
-constants, so each config monomorphizes its own fused XLA program — the TPU
+constants, so each config monomorphizes its own fused XLA program — the
 analogue of the reference's const-generic dispatch (fast_simd.rs:847-859).
 """
 
@@ -50,10 +50,10 @@ from ..config import NonmaxMode
 from ..geometry import CIRCLE, RADIUS
 from . import windows
 
-# Internal integer dtype for difference math.  i32 is the TPU VPU's native
-# integer width; the reference's u8 saturating-bounds trick
-# (fast_simd.rs:406-407) exists only because AVX2 lacks unsigned compares —
-# in i32 the comparisons are simply strict integer compares.
+# Internal integer dtype for difference math.  The reference's u8
+# saturating-bounds trick (fast_simd.rs:406-407) exists only because AVX2
+# lacks unsigned compares — in i32 the comparisons are simply strict
+# integer compares.
 _IDT = jnp.int32
 
 

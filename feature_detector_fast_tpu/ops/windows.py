@@ -3,8 +3,8 @@
 The heart of FAST is the wraparound "n consecutive" arc test.  The reference
 implements it by rotating a byte mask 16 times and testing all-ones
 (fast_simd.rs:244-295); its score kernel runs 16 explicit windowed min/max
-scans (fast_simd.rs:663-695).  Neither shape suits a TPU: VPU lanes cannot
-branch per-pixel and rotate-heavy inner loops serialize.
+scans (fast_simd.rs:663-695).  Neither shape suits dense vector code:
+lanes cannot branch per pixel and rotate-heavy inner loops serialize.
 
 Instead we use doubling chains.  Let ``g_k[s]`` be the reduction (AND /
 min / max) of ``k`` consecutive ring elements starting at position ``s``:
@@ -17,17 +17,14 @@ by every window length); an arbitrary length n window at start s is then
 folded on the fly from n's binary decomposition —
 ``w_n[s] = g_8[s] . g_4[s+8] . g_1[s+12]`` for n = 13 — and immediately
 reduced into the accumulator.  This caps resident planes at 4 levels x 16.
-In the fused Pallas kernel these list-of-planes chains remain only in the
-MaxThreshold score path (its dual min/max pyramids are why that kernel
-raises the Mosaic scoped-VMEM budget above the 16 MB default at 64-row
-tiles); the boolean arc test now runs
-on packed bit rings instead (fast_pallas._packed_any_window_all), and
-`ring_any_window_all` below is the XLA dense pipeline's (and the packed
-chain's differential-test) formulation.
+The GPU kernels (ops/fast_triton.py) use these chains for the MaxThreshold
+score; their boolean arc test runs the same doubling on 16-bit masks
+instead, and `ring_any_window_all` below is its differential-test
+formulation as well as the XLA pipeline's.
 
 These helpers are array-library agnostic: they work for jnp arrays, numpy
-arrays, or Pallas in-VMEM values, since they only call the supplied
-combine.
+arrays, or values inside a Pallas kernel, since they only call the
+supplied combine.
 """
 
 from __future__ import annotations

@@ -3,7 +3,7 @@
 // Plays the role of the reference's `opencv_compat.rs`: a deliberately
 // simple, loop-based implementation of the exact OpenCV-3.2 FAST semantics
 // (detection, both score functions, border-quirk nonmax), fast enough to
-// diff the TPU kernels against on full 1080p frames.  Written from the
+// diff the device kernels against on full 1080p frames.  Written from the
 // semantic spec (see ops/fast.py docstring), not translated from the
 // reference's SIMD code.
 //

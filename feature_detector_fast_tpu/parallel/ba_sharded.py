@@ -3,7 +3,7 @@ Schur-complement reductions as psum collectives.
 
 This is the BASELINE.json north_star's distributed layer: keyframes/map
 observations partition across devices; each device computes its local
-Jacobian/segment partials; `psum` over the ICI assembles the global
+Jacobian/segment partials; `psum` across devices assembles the global
 normal equations; every device then runs the identical (replicated)
 CG on the reduced camera system, so poses/points stay consistent with no
 parameter server.

@@ -1,7 +1,7 @@
 """Data-parallel front-end: batched FAST detection over a device mesh.
 
 Frames shard over the ``data`` mesh axis; each device runs the fused dense
-detector on its shard (vmapped over local frames).  This is the TPU
+detector on its shard (vmapped over local frames).  This is the device
 analogue of running the reference detector on N cores — except the sharding
 is declarative and XLA inserts any cross-device movement (SURVEY.md §2.9).
 """

@@ -1,13 +1,14 @@
 """Device mesh construction and sharding helpers.
 
 The reference is single-core SIMD; all multi-device structure here is new
-TPU scope (SURVEY.md §2.9).  Axis conventions used across the framework:
+scope (SURVEY.md §2.9).  Axis conventions used across the framework:
 
   * ``data``  — frames / image batches (embarrassingly parallel front-end)
   * ``model`` — landmark/camera blocks inside bundle adjustment
 
 Collectives are XLA-generated (`psum`, `all_gather`, `ppermute`) via
-`shard_map` over these axes and ride ICI within a slice.
+`shard_map` over these axes.  Every GPU of a host reaches every other at
+the same NVLink rate, so a mesh's shape follows the algorithm alone.
 """
 
 from __future__ import annotations

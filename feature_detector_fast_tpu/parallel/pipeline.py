@@ -5,8 +5,8 @@ SURVEY.md §2.9 maps the reference's (nonexistent) pipeline parallelism to
 across devices".  This module implements that dataflow GPipe-style as pure
 SPMD: every device runs the same program under `shard_map`, selects its
 stage body with `lax.switch` on its ``pipe`` axis index, and activations
-rotate one stage forward per tick with `lax.ppermute` (ICI
-neighbor-to-neighbor traffic — the cheapest collective on a TPU slice).
+rotate one stage forward per tick with `lax.ppermute` (neighbour-to-
+neighbour traffic).
 
 Stages (one device each):
 
@@ -43,6 +43,7 @@ from ..config import NonmaxMode
 from ..models import brief as brieflib
 from ..models import match as matchlib
 from ..models.brief import Keypoints
+from ..ops import fast
 
 PIPE_AXIS = "pipe"
 N_STAGES = 3
@@ -112,13 +113,11 @@ def frontend_pipelined(
     Returns per-frame keypoints, descriptors, and matches of each frame
     against its predecessor, bit-identical to the sequential front-end.
     """
-    from ..api import _detect_dense_best
-
     b, h, w = frames.shape
     ticks = b + N_STAGES - 1
 
     def stage_detect(act: _Act) -> _Act:
-        mask, score = _detect_dense_best(
+        mask, score = fast.detect_dense(
             act.image, threshold, count, NonmaxMode.SUM_ABSOLUTE
         )
         kps = brieflib.select_topk(mask, score, k)

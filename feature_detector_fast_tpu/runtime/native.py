@@ -2,7 +2,7 @@
 
 Builds `native_src/host_runtime.cpp` with g++ on first use (cached by
 source hash, same scheme as oracle/native.py) and exposes the host-side
-serving hot loop: expanding the TPU's packed (word_index, word_bits)
+serving hot loop: expanding the device's packed (word_index, word_bits)
 keypoint encoding into (x, y) arrays — single frame and threaded batch.
 
 `available()` gates use; every caller keeps the numpy fallback

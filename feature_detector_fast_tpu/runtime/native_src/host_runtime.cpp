@@ -1,11 +1,11 @@
 // Native host runtime for the serving path.
 //
-// The TPU side of a detection emits a compact (word_index, word_bits)
+// The device side of a detection emits a compact (word_index, word_bits)
 // encoding of the keypoint set (ops/compact.py); turning that into the
 // user-facing (x, y) keypoint list is host work on the serving critical
 // path.  The reference keeps its host-side result handling native too
 // (main.rs:4-15 write_keypoints / util.rs draw loop); this is the
-// TPU-framework analogue: a bit-scan expansion loop (ctz + clear-lowest
+// framework's analogue: a bit-scan expansion loop (ctz + clear-lowest
 // -bit) instead of numpy's materialized (n_words, 32) bit matrix, plus a
 // std::thread fan-out over the frames of a batch.
 //

@@ -3,9 +3,8 @@
 Formalizes the production serving pattern the benchmark measures: frames
 stream through in batches, each batch is ONE fused device dispatch
 (detect + score + nonmax + word compaction), and host readback overlaps
-across in-flight batches via async copies.  On remote-attached TPUs this
-hides most of the dispatch/readback round trips; on PCIe hosts it hides
-the (smaller) transfer latencies the same way.
+across in-flight batches via async copies, which hides the transfer
+latencies behind device work.
 
     pipe = DetectorPipeline(Config(16, 9, NonmaxMode.MAX_THRESHOLD))
     for batch in frame_batches:          # (B, H, W) uint8 each

@@ -1,8 +1,7 @@
 """Checkpoint / resume for SLAM state (SURVEY.md §5.4 — new scope).
 
 The reference detector is stateless; the SLAM layers accumulate state
-(trajectory, landmarks, pose graph) that must survive preemption on TPU
-fleets.  Orbax is the standard JAX checkpointer and handles device arrays,
+(trajectory, landmarks, pose graph) that must survive preemption.  Orbax is the standard JAX checkpointer and handles device arrays,
 sharded arrays, and async saves; this wrapper pins the framework's state
 schema and a simple latest-step resume flow.
 """

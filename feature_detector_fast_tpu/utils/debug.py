@@ -1,11 +1,11 @@
 """Numerical-debug facilities (SURVEY.md §5.2 — the race-detection /
-sanitizer slot, in TPU terms).
+sanitizer slot, for jitted device code).
 
 The reference has no sanitizers; its `unsafe` SIMD relies on Rust's borrow
-rules.  The TPU analogue of "sanitizers" is numeric: NaN/Inf tripwires in
-jitted programs, plus collective-determinism assertions for distributed
+rules.  For jitted programs the analogue of "sanitizers" is numeric:
+NaN/Inf tripwires, plus collective-determinism assertions for distributed
 code (collectives must produce identical replicated values on every
-device — a desync is the TPU version of a data race).
+device — a desync is the device version of a data race).
 
 Also hosts the vector pretty-printers (`pi`/`pl` analogues,
 fast_simd.rs:827-844) for dumping mask/score planes as hex rows.

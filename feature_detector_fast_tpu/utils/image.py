@@ -10,14 +10,20 @@ Parity targets in the reference:
     API parity.
   * `draw_plus_sized` overlay drawing (util.rs:62-81) including its exact
     boundary behavior (skips px<=0 / py<=0 and px>=w / py>=h).
+
+PNG files are read and written by a small codec on stdlib `zlib` and
+numpy: 8-bit gray, gray+alpha, RGB and RGBA, non-interlaced, all five
+row filters.  That covers the committed media and everything the CLI
+writes; anything else raises ValueError.
 """
 
 from __future__ import annotations
 
+import struct
+import zlib
 from typing import Iterable, Sequence, Tuple
 
 import numpy as np
-from PIL import Image
 
 # Color constants (reference: util.rs:44-50).
 WHITE = (255, 255, 255)
@@ -50,19 +56,120 @@ def rgb_to_grey_third(rgb: np.ndarray) -> np.ndarray:
     return (rgb_to_luma16_sum(rgb) // 3).astype(np.uint8)
 
 
-def load_luma8(path: str) -> np.ndarray:
-    """Load an image file and convert to uint8 luma exactly like the
-    reference CLI does (open -> rgb8 -> to_luma8; main.rs:53-58)."""
-    rgb = np.asarray(Image.open(path).convert("RGB"), dtype=np.uint8)
-    return rgb_to_luma8(rgb)
+_PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+#: PNG colour type -> channels (8-bit depth only).
+_PNG_CHANNELS = {0: 1, 4: 2, 2: 3, 6: 4}
+
+
+def _unfilter(raw: bytes, h: int, w: int, channels: int) -> np.ndarray:
+    """Undo the per-row PNG filters (None, Sub, Up, Average, Paeth).
+
+    Pixel (y, x) depends on its left, upper and upper-left neighbours, so
+    it is reconstructed one anti-diagonal (x + y constant) at a time, all
+    of a diagonal's pixels at once: H + W - 1 vector steps."""
+    rows = np.frombuffer(raw, np.uint8)
+    if rows.size != h * (w * channels + 1):
+        raise ValueError("PNG data has the wrong size for its header")
+    rows = rows.reshape(h, w * channels + 1)
+    ftype = rows[:, 0].astype(np.int32)
+    if (ftype > 4).any():
+        raise ValueError(f"bad PNG filter type {int(ftype.max())}")
+    line = rows[:, 1:].reshape(h, w, channels).astype(np.int32)
+    # One zero row above and one zero column to the left stand in for the
+    # neighbours outside the image.
+    out = np.zeros((h + 1, w + 1, channels), np.int32)
+    for d in range(h + w - 1):
+        y = np.arange(max(0, d - w + 1), min(h, d + 1))
+        x = d - y
+        a = out[y + 1, x]       # left
+        b = out[y, x + 1]       # up
+        c = out[y, x]           # upper left
+        p = a + b - c
+        pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
+        paeth = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+        f = ftype[y][:, None]
+        pred = np.select([f == 1, f == 2, f == 3, f == 4],
+                         [a, b, (a + b) >> 1, paeth], 0)
+        out[y + 1, x + 1] = (line[y, x] + pred) & 0xFF
+    return out[1:, 1:].astype(np.uint8)
+
+
+def read_png(path: str) -> np.ndarray:
+    """Decode an 8-bit PNG to an (H, W, C) uint8 array, C in {1, 2, 3, 4}
+    (gray, gray+alpha, RGB, RGBA)."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if not data.startswith(_PNG_SIGNATURE):
+        raise ValueError(f"{path}: not a PNG file")
+    pos = len(_PNG_SIGNATURE)
+    header = None
+    idat = []
+    while pos + 8 <= len(data):
+        length, ctype = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + length]
+        pos += 12 + length
+        if ctype == b"IHDR":
+            header = struct.unpack(">IIBBBBB", body)
+        elif ctype == b"IDAT":
+            idat.append(body)
+        elif ctype == b"IEND":
+            break
+    if header is None:
+        raise ValueError(f"{path}: PNG has no IHDR chunk")
+    w, h, depth, color, _, _, interlace = header
+    if depth != 8 or color not in _PNG_CHANNELS or interlace:
+        raise ValueError(
+            f"{path}: unsupported PNG (bit depth {depth}, colour type "
+            f"{color}, interlace {interlace})")
+    return _unfilter(zlib.decompress(b"".join(idat)), h, w,
+                     _PNG_CHANNELS[color])
+
+
+def _png_chunk(ctype: bytes, body: bytes) -> bytes:
+    return (struct.pack(">I", len(body)) + ctype + body
+            + struct.pack(">I", zlib.crc32(ctype + body) & 0xFFFFFFFF))
+
+
+def write_png(array: np.ndarray, path: str) -> None:
+    """Encode an (H, W) gray or (H, W, C) uint8 array as PNG (filter
+    None on every row)."""
+    a = np.asarray(array)
+    if a.dtype != np.uint8:
+        raise ValueError(f"expected uint8, got {a.dtype}")
+    if a.ndim == 2:
+        a = a[..., None]
+    h, w, channels = a.shape
+    color = {v: k for k, v in _PNG_CHANNELS.items()}.get(channels)
+    if color is None:
+        raise ValueError(f"cannot write {channels} channels as PNG")
+    raw = np.concatenate(
+        [np.zeros((h, 1), np.uint8), a.reshape(h, w * channels)], axis=1)
+    with open(path, "wb") as f:
+        f.write(_PNG_SIGNATURE)
+        f.write(_png_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, color,
+                                                0, 0, 0)))
+        f.write(_png_chunk(b"IDAT", zlib.compress(raw.tobytes(), 6)))
+        f.write(_png_chunk(b"IEND", b""))
 
 
 def load_rgb8(path: str) -> np.ndarray:
-    return np.asarray(Image.open(path).convert("RGB"), dtype=np.uint8)
+    """(H, W, 3) uint8 RGB: gray is replicated and alpha dropped, as the
+    image crate's `to_rgb8` does."""
+    px = read_png(path)
+    channels = px.shape[-1]
+    if channels <= 2:
+        return np.repeat(px[..., :1], 3, axis=-1)
+    return np.ascontiguousarray(px[..., :3])
+
+
+def load_luma8(path: str) -> np.ndarray:
+    """Load an image file and convert to uint8 luma exactly like the
+    reference CLI does (open -> rgb8 -> to_luma8; main.rs:53-58)."""
+    return rgb_to_luma8(load_rgb8(path))
 
 
 def save_image(array: np.ndarray, path: str) -> None:
-    Image.fromarray(np.asarray(array)).save(path)
+    write_png(array, path)
 
 
 def draw_plus_sized(

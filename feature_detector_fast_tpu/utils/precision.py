@@ -1,18 +1,18 @@
 """Matmul-precision control for the geometry stack.
 
-JAX's DEFAULT matmul precision on TPU feeds f32 matmuls through the
-MXU's bf16 path (~8 mantissa bits).  That is the right trade for the
-detector/descriptor kernels — their MXU uses are EXACT by construction
-(power-of-two packing weights, int8 sampling) — but it silently corrupts
-the geometry stack, where normal-equation products (J^T J, Schur
-einsums) square condition numbers and then lose them to bf16: measured
-round 4, the F=64 VGA loop+BA pipeline converged to 1.7% ATE on CPU but
-3.1% on TPU from this alone, with BA landing WORSE than odometry.
+JAX's DEFAULT matmul precision lets an accelerator run f32 matmuls in a
+reduced format: TF32 (~10 mantissa bits) on an NVIDIA GPU's tensor
+cores.  The detector/descriptor math does not care — its one matmul (the
++-1 Hamming product) is exact in bf16 — but reduced precision silently
+corrupts the geometry stack, where normal-equation products (J^T J,
+Schur einsums) square condition numbers and then lose them: an earlier
+accelerator's bf16 default moved the F=64 VGA loop+BA pipeline from 1.7%
+ATE (CPU) to 3.1%, with BA landing WORSE than odometry.
 
 ``matmul_highest`` wraps a function so everything traced inside runs
-with `jax.default_matmul_precision("highest")` (f32 accumulated through
-multiple MXU passes).  The geometry matmuls are tiny next to the image
-kernels, so the cost is noise; the correctness is not.
+with `jax.default_matmul_precision("highest")` (full f32; no TF32).  The
+geometry matmuls are tiny next to the image kernels, so the cost is
+noise; the correctness is not.
 
 Apply it UNDER `jax.jit` (the context must be active at trace time):
 

@@ -1,7 +1,7 @@
 """Tracing / profiling facilities (SURVEY.md §5.1).
 
 The reference's tracing is a compile-time `trace!` macro gated on
-`DO_PRINTS` (fast_simd.rs:56-67) plus wall-clock prints.  TPU equivalents:
+`DO_PRINTS` (fast_simd.rs:56-67) plus wall-clock prints.  Equivalents here:
 
   * `trace(...)`: host-side trace prints gated by the FDF_TRACE env var
     (zero overhead when off — calls are cheap no-ops, and kernel-side

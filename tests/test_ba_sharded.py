@@ -44,7 +44,7 @@ def test_sharded_step_matches_single_device(rng):
 
 
 def test_sharded_step_f32_cost_agreement(rng, x64):
-    """f32 regime (TPU-realistic): psum reduction-order noise makes raw
+    """f32 regime (what the device runs): psum reduction-order noise makes raw
     pose entries diverge (observed up to ~1e-3 relative through 30 CG
     iterations), so the defensible f32 contract is that both steps reach
     the SAME cost basin: post-step total cost agrees to a few ulps of the

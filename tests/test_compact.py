@@ -97,20 +97,20 @@ def test_packed_batch_roundtrip(rng):
 
 
 def test_padded_grid_compaction_matches_true_grid(rng):
-    """The TPU path compacts on the kernel's lane-padded grid and decodes
-    with effective (padded) width; validate that math on CPU via the
-    interpret-mode padded kernel."""
+    """The GPU route compacts on the kernel's per-row padded word grid and
+    decodes with the padded width; validate that math on the CPU through
+    the interpret-mode kernel."""
     from feature_detector_fast_tpu.config import NonmaxMode
-    from feature_detector_fast_tpu.ops import fast_pallas
+    from feature_detector_fast_tpu.ops import fast_triton
 
-    img = rng.integers(0, 256, (40, 200), np.uint8)  # W pads 200 -> 256
-    mask_p, _ = fast_pallas.detect_dense_padded(
-        img, 16, 9, NonmaxMode.MAX_THRESHOLD, True)
-    wp = fast_pallas.padded_width(200)
-    assert mask_p.shape[1] == wp
-    widx, wbits, n, n_words = compact.compact_mask_words(mask_p, 256)
-    got = compact.expand_words_host(np.asarray(widx), np.asarray(wbits),
-                                    int(n), wp)
+    img = rng.integers(0, 256, (40, 200), np.uint8)  # W pads 200 -> 224
+    words = fast_triton.detect_words(img, 16, 9, NonmaxMode.MAX_THRESHOLD,
+                                     interpret=True)
+    wp = fast_triton.padded_width(200)
+    assert words.shape == (40, wp // 32)
+    sidx, sbits, n, n_supers = compact.compact_packed_supers(words, 64)
+    got = compact.expand_supers_host(np.asarray(sidx), np.asarray(sbits),
+                                     int(n), wp)
     from feature_detector_fast_tpu import Config, detect_arrays
     want = detect_arrays(img, Config(16, 9, NonmaxMode.MAX_THRESHOLD))
     np.testing.assert_array_equal(got, want)

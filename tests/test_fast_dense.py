@@ -120,11 +120,29 @@ def test_super_cap_overflow_retry(reference_image):
 
 
 def test_grow_cap_jumps_to_identity():
-    """Round-4 cap policy: ANY overflow retry jumps straight to the
-    full-grid identity cap (top_k cost scales with grid keys, not cap —
-    tools/exp_r4_caps.py), so a frame costs at most one retry ever."""
+    """Cap policy: ANY overflow retry jumps straight to the full-grid
+    identity cap, so a frame costs at most one retry ever."""
     from feature_detector_fast_tpu.api import _grow_cap
 
     assert _grow_cap(2048, 2875, 8100) == 8100
     assert _grow_cap(4, 5, 8100) == 8100
     assert _grow_cap(8100, 8100, 8100) == 8100
+
+
+@pytest.mark.parametrize(
+    "nonmax,count",
+    [(m, n) for m in NonmaxMode for n in range(9, 17)],
+    ids=lambda v: v.value if isinstance(v, NonmaxMode) else str(v),
+)
+def test_dense_matches_native_oracle_all_configs(reference_image, nonmax,
+                                                 count):
+    """ops/fast.py against the C++ scalar oracle on the real 300x200 frame
+    in every (nonmax mode x count 9..16) configuration at t=16 — the set
+    the GPU smoke run checks at 1080p."""
+    from feature_detector_fast_tpu.oracle import native
+    from feature_detector_fast_tpu.ops import fast
+
+    mask, _ = fast.detect_dense_jit(reference_image, 16, count, nonmax)
+    yx = np.argwhere(np.asarray(mask))
+    want = native.detect_arrays(reference_image, Config(16, count, nonmax))
+    np.testing.assert_array_equal(yx[:, ::-1].astype(np.uint32), want)

@@ -1,4 +1,4 @@
-"""Front-end tests: top-K selection, BRIEF descriptors, MXU matching."""
+"""Front-end tests: top-K selection, BRIEF descriptors, Hamming matching."""
 
 import numpy as np
 import pytest
@@ -187,3 +187,62 @@ def test_oriented_brief_rotation_robustness(rng):
     want = np.stack([pa[ok][:, 1], W - 1 - pa[ok][:, 0]], axis=-1)
     good = (np.abs(pb[ok] - want) <= 1).all(axis=1).mean()
     assert good > 0.8, good
+
+
+def _brief_numpy(image, xy, valid, oriented):
+    """Plain numpy BRIEF-256: 5x5 box sums (edges repeat the nearest full
+    window, as box_blur5 does), intensity-centroid orientation from exact
+    integer moments, then the (rotated) pattern's strict compares."""
+    img = image.astype(np.int64)
+    h, w = img.shape
+    pad = np.pad(img, 2)
+    box = sum(pad[dy:dy + h, dx:dx + w] for dy in range(5) for dx in range(5))
+    rows = np.clip(np.arange(h), 2, h - 3)
+    cols = np.clip(np.arange(w), 2, w - 3)
+    blur = box[rows][:, cols]
+    r = brief.PATCH_R
+    k = len(xy)
+    desc = np.zeros((k, brief.WORDS), np.uint32)
+    inb = np.zeros(k, bool)
+    for i, ((x, y), v) in enumerate(zip(xy, valid)):
+        b = brief.BORDER
+        inb[i] = v and b <= x < w - b and b <= y < h - b
+        if not inb[i]:
+            continue
+        pat = brief.PATTERN
+        if oriented:
+            patch = img[y - r:y + r + 1, x - r:x + r + 1]
+            d = np.arange(-r, r + 1)
+            m10 = np.float32((patch * d[None, :]).sum())
+            m01 = np.float32((patch * d[:, None]).sum())
+            ang = np.arctan2(m01, m10)
+            bin_ = int(np.round(ang / np.float32(2 * np.pi)
+                                * np.float32(brief.N_ANGLE_BINS)))
+            pat = brief.ROTATED_PATTERNS[bin_ % brief.N_ANGLE_BINS]
+        p1 = blur[y + pat[:, 0, 1], x + pat[:, 0, 0]]
+        p2 = blur[y + pat[:, 1, 1], x + pat[:, 1, 0]]
+        bits = (p1 < p2).astype(np.uint64).reshape(brief.WORDS, 32)
+        desc[i] = (bits << np.arange(32, dtype=np.uint64)).sum(axis=1)
+    return desc, inb
+
+
+@pytest.mark.parametrize("oriented", [False, True], ids=["plain", "steered"])
+@pytest.mark.parametrize("shape", [(64, 96), (80, 160), (120, 96)])
+def test_brief_matches_numpy_reference(rng, shape, oriented):
+    """describe / describe_oriented (the XLA gather paths the device runs)
+    against a plain numpy BRIEF, slot by slot (invalid slots are masked
+    by the validity bit)."""
+    from conftest import fuzz_keypoints
+
+    h, w = shape
+    yy, xx = np.mgrid[:h, :w]
+    image = (rng.integers(0, 256, shape) // 2
+             + 60 * np.sin(xx / 5.0 + yy / 9.0) + 64).astype(np.uint8)
+    kps = fuzz_keypoints(rng, h, w, 96)
+    fn = brief.describe_oriented if oriented else brief.describe
+    desc, inb = fn(image, kps)
+    want, want_inb = _brief_numpy(image, np.asarray(kps.xy),
+                                  np.asarray(kps.valid), oriented)
+    np.testing.assert_array_equal(np.asarray(inb), want_inb)
+    assert want_inb.sum() >= 5  # slots the reference really describes
+    np.testing.assert_array_equal(np.asarray(desc)[want_inb], want[want_inb])

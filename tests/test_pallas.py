@@ -1,15 +1,17 @@
-"""Pallas fused kernel vs the XLA dense pipeline (interpret mode on CPU).
+"""GPU FAST kernels (ops/fast_triton.py) vs the XLA reference, in
+interpret mode on the CPU.
 
-Tier-1/2 analogue for the fused kernel: bit-identical masks and scores on
-fuzz images and the committed real frame, across configs, counts, and
-awkward shapes (tile remainders, tiny images, flat images).
+The kernels emit per-row packed keypoint words; every case checks them
+against `compact.pack_mask_words` of `fast.detect_dense`'s mask on the
+padded word grid — fuzz images, the committed real frame, configs,
+counts, and awkward shapes (tile remainders, tiny and flat images).
 """
 
 import numpy as np
 import pytest
 
-from feature_detector_fast_tpu.config import Config, NonmaxMode
-from feature_detector_fast_tpu.ops import fast, fast_pallas
+from feature_detector_fast_tpu.config import NonmaxMode
+from feature_detector_fast_tpu.ops import compact, fast, fast_triton, windows
 
 CONFIGS = [
     (16, 9, NonmaxMode.OFF),
@@ -20,14 +22,23 @@ CONFIGS = [
 ]
 
 
+def reference_words(img, threshold, count, nonmax):
+    """pack_mask_words of the XLA mask, row by row on the padded grid."""
+    import jax.numpy as jnp
+
+    mask, _ = fast.detect_dense_jit(img, threshold, count, nonmax)
+    h, w = img.shape
+    padded = np.zeros((h, fast_triton.padded_width(w)), bool)
+    padded[:, :w] = np.asarray(mask)
+    bits, n = compact.pack_mask_words(jnp.asarray(padded))
+    return np.asarray(bits).reshape(h, -1), int(n)
+
+
 def assert_same(img, threshold, count, nonmax):
-    m1, s1 = fast.detect_dense_jit(img, threshold, count, nonmax)
-    m2, s2 = fast_pallas.detect_dense_pallas(img, threshold, count, nonmax, True)
-    np.testing.assert_array_equal(np.asarray(m1), np.asarray(m2))
-    if nonmax is not NonmaxMode.OFF:
-        # Score maps must agree wherever a candidate exists; elsewhere the
-        # dense path stores 0 and so does the kernel.
-        np.testing.assert_array_equal(np.asarray(s1), np.asarray(s2))
+    got = np.asarray(fast_triton.detect_words(img, threshold, count, nonmax,
+                                              interpret=True))
+    want, _ = reference_words(img, threshold, count, nonmax)
+    np.testing.assert_array_equal(got, want)
 
 
 @pytest.mark.parametrize("cfg", CONFIGS, ids=str)
@@ -72,178 +83,93 @@ def test_pallas_pathological_images(pattern):
     assert_same(img, 16, 9, NonmaxMode.MAX_THRESHOLD)
     assert_same(img, 16, 9, NonmaxMode.OFF)
     if pattern in ("white", "black"):
-        m, _ = fast.detect_dense_jit(img, 16, 9, NonmaxMode.OFF)
-        assert int(np.asarray(m).sum()) == 0
+        words = fast_triton.detect_words(img, 16, 9, NonmaxMode.OFF,
+                                         interpret=True)
+        assert not np.asarray(words).any()
 
 
 @pytest.mark.parametrize("cfg", CONFIGS, ids=str)
 def test_packed_words_kernel_matches_dense_pack(rng, cfg):
-    """detect_words_padded (MXU bit packing, no dense mask in HBM) must emit
-    exactly pack_mask_words(dense padded mask)."""
-    from feature_detector_fast_tpu.ops import compact
+    """The kernel's words compact to exactly what the dense path's do:
+    same superwords, same count, and zero words past the true width."""
+    from feature_detector_fast_tpu import api
 
-    img = rng.integers(0, 256, (40, 200), np.uint8)
+    img = rng.integers(0, 256, (40, 200), np.uint8)  # 200 -> 7 words/row
     threshold, count, nonmax = cfg
-    assert fast_pallas.words_supported(img.shape[1])
-
-    mask, _ = fast_pallas.detect_dense_padded(img, threshold, count, nonmax, True)
-    ref_bits, ref_n = compact.pack_mask_words(mask)
-
-    words = fast_pallas.detect_words_padded(img, threshold, count, nonmax, True)
-    wpw = fast_pallas.padded_width(img.shape[1]) // 32
-    got_bits = np.asarray(words)[:, :wpw].reshape(-1)
-    np.testing.assert_array_equal(got_bits, np.asarray(ref_bits))
-    # dead lanes beyond the valid words must be zero
-    assert not np.asarray(words)[:, wpw:].any()
-
-    widx, wbits, n, n_words = compact.compact_packed_words(words, wpw, 256)
-    rwidx, rwbits, rn, rn_words = compact.compact_mask_words(mask, 256)
-    np.testing.assert_array_equal(np.asarray(widx), np.asarray(rwidx))
-    np.testing.assert_array_equal(np.asarray(wbits), np.asarray(rwbits))
-    assert int(n) == int(rn) == int(ref_n) and int(n_words) == int(rn_words)
+    words = np.asarray(fast_triton.detect_words(img, threshold, count, nonmax,
+                                                interpret=True))
+    want, n_ref = reference_words(img, threshold, count, nonmax)
+    np.testing.assert_array_equal(words, want)
+    assert not (words[:, -1] >> (200 - 6 * 32)).any()  # columns >= 200
+    sidx, sbits, n, n_supers = api._compact_triton(
+        img, threshold, count, nonmax, 64, interpret=True)
+    got = compact.expand_supers_host(np.asarray(sidx), np.asarray(sbits),
+                                     int(n), fast_triton.padded_width(200))
+    mask, _ = fast.detect_dense_jit(img, threshold, count, nonmax)
+    yx = np.argwhere(np.asarray(mask))
+    np.testing.assert_array_equal(got, yx[:, ::-1].astype(np.uint32))
+    assert int(n) == n_ref == len(yx)
 
 
 def test_padded_dims_and_super_cap_bound():
-    """The pallas-branch superword-cap bound (api._max_super_cap) must be
-    computable and EXACTLY cover the sliced word grid: true image height
-    (api._detect_compact slices word rows to it before superword
-    selection) x lane-padded width (words align per padded row).  ADVICE
-    r3: a padded-HEIGHT bound oversized the identity-layout cap _grow_cap
-    jumps to, and with it the readback buffers.  This path only runs on
-    TPU in production, so exercise it with the backend check mocked."""
+    """On the kernel's route the superword-cap bound (api._max_super_cap)
+    covers exactly the per-row word grid: true height x padded width."""
     from unittest import mock
 
     from feature_detector_fast_tpu import api
-    from feature_detector_fast_tpu.ops import compact
 
-    hp, wp = fast_pallas.padded_height(1080), fast_pallas.padded_width(1920)
-    assert hp % fast_pallas.TILE_H == 0
-    assert wp % fast_pallas.LANES == 0
-    with mock.patch.object(api, "_use_pallas", lambda: True):
-        cap = api._max_super_cap(1080, 1920)
-    n_words_sliced = 1080 * (wp // 32)
-    assert cap == -(-n_words_sliced // compact.SUPER_SPAN)
-    # ... and still bounds any reachable superword count (sanity: the
-    # sliced grid is what compaction actually sees).
-    assert cap * compact.SUPER_SPAN >= n_words_sliced
+    with mock.patch.object(api, "detector_route", lambda: "triton"):
+        assert api.effective_width(200) == 224
+        assert api.effective_width(1920) == 1920
+        cap = api._max_super_cap(1080, 200)
+    n_words = 1080 * (224 // 32)
+    assert cap == -(-n_words // compact.SUPER_SPAN)
 
 
 def test_threshold_contract(rng):
-    """The kernels enforce the reference's u8 threshold contract
-    (lib.rs:41) — the SWAR field encodings are exact only on 0..=255 —
-    and stay bit-exact at both ends of the range."""
+    """The kernels take the reference's u8 threshold (lib.rs:41) and stay
+    bit-exact at both ends of the range."""
     img = rng.integers(0, 256, (64, 128), np.uint8)
     for bad in (-1, 256, 300):
         with pytest.raises(ValueError):
-            fast_pallas.detect_dense_pallas(img, bad, 9, NonmaxMode.OFF, True)
-        with pytest.raises(ValueError):
-            fast_pallas.detect_words_padded(img, bad, 9, NonmaxMode.OFF, True)
+            fast_triton.detect_words(img, bad, 9, NonmaxMode.OFF,
+                                     interpret=True)
     for t in (0, 255):
         assert_same(img, t, 9, NonmaxMode.OFF)
         assert_same(img, t, 9, NonmaxMode.SUM_ABSOLUTE)
 
 
-@pytest.mark.parametrize(
-    "flags",
-    [
-        {"_SEP_NONMAX": False},
-        {"_SLICED_ROLLS": False},
-        {"_MT_WINDOW_DTYPE": np.int32},
-        {"_SEP_NONMAX": False, "_SLICED_ROLLS": False,
-         "_MT_WINDOW_DTYPE": np.int32},
-    ],
-    ids=lambda f: "+".join(sorted(f)),
-)
-def test_pallas_tuning_flags_are_semantics_free(rng, flags):
-    """The round-3 throughput knobs (separable nonmax, sliced rolls, f32
-    MT window) gate bit-identical alternatives: BOTH branches of each flag
-    must match the XLA dense reference.  The defaults are exercised by
-    every other test in this file; this pins the non-default branches so
-    future refactors cannot silently couple semantics to a knob."""
-    import jax.numpy as jnp
+@pytest.mark.parametrize("count", range(1, 17))
+def test_arc_bit_chain_matches_ring_windows(count):
+    """The kernels' 16-bit arc test equals the boolean-plane ring test of
+    ops.windows on every one of the 2**16 masks."""
+    masks = np.arange(1 << 16, dtype=np.uint32)
+    got = np.asarray(fast_triton._arc_any(masks, count))
+    planes = [((masks >> i) & 1).astype(bool) for i in range(16)]
+    want = windows.ring_any_window_all(planes, count, np.logical_and,
+                                       np.logical_or)
+    np.testing.assert_array_equal(got, want)
 
-    resolved = {
-        k: (jnp.int32 if v is np.int32 else v) for k, v in flags.items()
-    }
-    saved = {k: getattr(fast_pallas, k) for k in resolved}
-    for k, v in resolved.items():
-        setattr(fast_pallas, k, v)
-    try:
-        img = rng.integers(0, 256, (70, 150), np.uint8)
-        for threshold, count, nonmax in CONFIGS[:3]:
-            m1, s1 = fast.detect_dense(img, threshold, count, nonmax)
-            # Bypass detect_dense_pallas' jit wrapper: a cached trace
-            # would NOT see the flag flip (flags are read at trace time).
-            m2, s2 = fast_pallas.detect_dense_pallas.__wrapped__(
-                img, threshold, count, nonmax, True
-            )
-            np.testing.assert_array_equal(np.asarray(m1), np.asarray(m2))
+
+def test_kernel_batches_under_vmap(rng):
+    """The serving path vmaps the kernels over a frame batch."""
+    import jax
+
+    imgs = rng.integers(0, 256, (3, 40, 96), np.uint8)
+    for nonmax in (NonmaxMode.OFF, NonmaxMode.SUM_ABSOLUTE):
+        got = np.asarray(jax.vmap(lambda im: fast_triton.detect_words(
+            im, 16, 9, nonmax, interpret=True))(imgs))
+        for i in range(imgs.shape[0]):
             np.testing.assert_array_equal(
-                np.asarray(s1).astype(np.int32),
-                np.asarray(s2).astype(np.int32),
-            )
-    finally:
-        for k, v in saved.items():
-            setattr(fast_pallas, k, v)
+                got[i], reference_words(imgs[i], 16, 9, nonmax)[0])
 
 
-def test_tile_h_selection_and_override(rng):
-    """Round-4 tile-height plumbing: tile_h_for minimizes padded height
-    over the per-mode measured-safe candidates (ties -> larger tile),
-    honors the experiment override, and a forced non-default tile height
-    stays bit-identical to the XLA reference (tile size is a pure
-    scheduling knob)."""
-    import jax.numpy as jnp
-
-    # 1080p winners reproduced by the rule (the sweep's measured bests).
-    # MT is COUNT-aware (round 5): even counts take the 216-row chunked-
-    # pyramid tile; odd counts' extra level-1 liveness OOMs 216 on
-    # hardware, so they keep 120 (the zero-padding round-4 winner).
-    assert fast_pallas.tile_h_for(NonmaxMode.OFF, 1080) == 224
-    assert fast_pallas.tile_h_for(NonmaxMode.MAX_THRESHOLD, 1080, 9) == 120
-    assert fast_pallas.tile_h_for(NonmaxMode.MAX_THRESHOLD, 1080, 12) == 216
-    assert fast_pallas.tile_h_for(NonmaxMode.SUM_ABSOLUTE, 1080) == 216
-    # small frames must not over-pad (VGA: 480 rows)
-    for mode in NonmaxMode:
-        t = fast_pallas.tile_h_for(mode, 480)
-        assert fast_pallas._pad_to(480, t) == 480, (mode, t)
-    saved = fast_pallas.TILE_H_OVERRIDE
-    try:
-        fast_pallas.TILE_H_OVERRIDE = 48
-        for mode in NonmaxMode:
-            assert fast_pallas.tile_h_for(mode, 1080) == 48
-        img = rng.integers(0, 256, (70, 150), np.uint8)
-        for mode in (NonmaxMode.OFF, NonmaxMode.MAX_THRESHOLD):
-            m1, s1 = fast.detect_dense(img, 16, 9, mode)
-            m2, s2 = fast_pallas.detect_dense_pallas.__wrapped__(
-                jnp.asarray(img), 16, 9, mode, True)
-            np.testing.assert_array_equal(np.asarray(m2), np.asarray(m1))
-            np.testing.assert_array_equal(np.asarray(s2), np.asarray(s1))
-    finally:
-        fast_pallas.TILE_H_OVERRIDE = saved
-
-
-def test_mt_pyramid_chunking_bit_exact(rng):
-    """Row-chunked MaxThreshold pyramids (round 5, VERDICT r4 #3) are a
-    pure VMEM-liveness knob: any chunk size must emit bit-identical mask
-    and score planes (the ring reductions are per-pixel, so sub-block
-    evaluation is exact by construction)."""
-    img = rng.integers(0, 256, (200, 140), np.uint8)
-    old_chunk = fast_pallas.MT_PYRAMID_CHUNK
-    old_tile = fast_pallas.TILE_H_OVERRIDE
-    try:
-        fast_pallas.TILE_H_OVERRIDE = 96  # rows=98 per tile
-        fast_pallas.MT_PYRAMID_CHUNK = None
-        m_ref, s_ref = fast_pallas.detect_dense_pallas(
-            img, 16, 9, NonmaxMode.MAX_THRESHOLD, True)
-        for chunk in (40, 64, 96):
-            fast_pallas.MT_PYRAMID_CHUNK = chunk
-            fast_pallas.detect_dense_pallas.clear_cache()
-            m, s = fast_pallas.detect_dense_pallas(
-                img, 16, 9, NonmaxMode.MAX_THRESHOLD, True)
-            np.testing.assert_array_equal(np.asarray(m), np.asarray(m_ref))
-            np.testing.assert_array_equal(np.asarray(s), np.asarray(s_ref))
-    finally:
-        fast_pallas.MT_PYRAMID_CHUNK = old_chunk
-        fast_pallas.TILE_H_OVERRIDE = old_tile
-        fast_pallas.detect_dense_pallas.clear_cache()
+@pytest.mark.gpu
+@pytest.mark.parametrize("nonmax", list(NonmaxMode), ids=lambda m: m.value)
+def test_compiled_kernel_matches_xla_on_gpu(gpu, rng, nonmax):
+    """The kernels as the card compiles them (no interpret mode) against
+    the XLA reference on the same card, at a tile-remainder shape."""
+    img = rng.integers(0, 256, (97, 230), np.uint8)
+    got = np.asarray(fast_triton.detect_words(img, 16, 9, nonmax))
+    want, _ = reference_words(img, 16, 9, nonmax)
+    np.testing.assert_array_equal(got, want)

@@ -34,5 +34,5 @@ def test_graft_entry_dryrun():
     import __graft_entry__ as ge
 
     fn, args = ge.entry()
-    jax.eval_shape(fn, *args)  # traces + shape-checks without TPU compile
+    jax.eval_shape(fn, *args)  # traces + shape-checks without compiling
     ge.dryrun_multichip(8)

@@ -1,7 +1,7 @@
 """Image-level VO accuracy on a deterministically rendered 3-D sequence.
 
 The FULL pipeline — rendered pixels -> FAST detect -> BRIEF describe ->
-MXU match -> essential RANSAC -> scale chaining -> pose graph — is scored
+Hamming match -> essential RANSAC -> scale chaining -> pose graph — is scored
 against the exact poses the frames were rendered from (VERDICT r1 items
 4/5: quantitative image-level ATE, not just finiteness)."""
 

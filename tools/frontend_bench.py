@@ -1,13 +1,13 @@
 """Full SLAM front-end benchmark: detect + top-K + BRIEF (+ matching).
 
 The detector headline (`bench.py`) covers the reference's scope; a SLAM
-deployment runs the whole front-end per frame.  This measures, chip-
-sustained (same on-device lax.scan protocol as bench.py):
+deployment runs the whole front-end per frame.  This measures, on the
+device (an on-device lax.scan over rounds, one dispatch per timing):
 
   1. detect_and_describe: FAST (SumAbsolute) -> top-K -> BRIEF-256
      (optionally steered/oriented) per frame, and
   2. the same plus mutual-NN Hamming matching of consecutive frame pairs
-     (one MXU matmul per pair).
+     (one +-1 matmul per pair).
 
 Usage: python tools/frontend_bench.py [k]   (default k=1000)
 Output: one JSON object per line on stdout; diagnostics on stderr.

@@ -1,11 +1,10 @@
-"""Resolution-scaling benchmark: chip-sustained FAST frames/s vs frame size.
+"""Resolution-scaling benchmark: device FAST frames/s vs frame size.
 
 The reference publishes one point (1080p on an i7-4770TE, README.md:54-65);
 production serving cares how throughput scales with resolution — 480p
-robotics streams to 4K film plates.  Same measurement protocol as bench.py
-(device-resident batch, on-device lax.scan rounds, detect + score + nonmax
-+ superword compaction per round, results reduced into the scan carry so
-no round is dead code).
+robotics streams to 4K film plates.  Device-resident batch, on-device
+lax.scan rounds, detect + score + nonmax + superword compaction per round,
+results reduced into the scan carry so no round is dead code.
 
 Usage: python tools/resolution_bench.py [mode]   (default: off)
 Output: one JSON object per line on stdout; diagnostics on stderr.

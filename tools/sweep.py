@@ -4,7 +4,7 @@ Runs the detector over the full configurable surface the reference
 supports — consecutive count 9..=16 (lib.rs:45-48, including the n>=12
 regime that enables the reference's 3-of-4 cardinal fast path) and a
 threshold sweep — on the benchmark frame, reporting keypoint counts and
-per-frame chip time for each point.
+per-frame device time for each point.
 
 Usage: python tools/sweep.py [image.png]   (default: tiled 1080p frame)
 Output: one JSON object per line on stdout.
